@@ -18,7 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def main() -> None:
     from gr_ldpc_ece535a_tpu.utils import enable_persistent_compile_cache
-    enable_persistent_compile_cache()  # one-time remote compiles per machine
+    enable_persistent_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--code", default="sim_50_100",
                     help="code registry name (see codes.list_codes)")
@@ -42,10 +42,6 @@ def main() -> None:
     ap.add_argument("--checkpoint", default=None,
                     help="JSONL checkpoint: completed Eb/N0 points are "
                          "skipped on rerun with the same configuration")
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "xla", "pallas"),
-                    help="decoder backend: pallas = VMEM-resident precise "
-                         "kernels (BP methods, TPU); auto picks per platform")
     args = ap.parse_args()
 
     if args.cpu:
@@ -67,7 +63,7 @@ def main() -> None:
         frames_per_point=args.frames_per_point,
         iterations=args.iterations,
         methods=tuple(args.methods.split(",")),
-        seed=args.seed, progress=True, backend=args.backend,
+        seed=args.seed, progress=True,
         checkpoint=args.checkpoint)
     print(res.to_table())
     print(f"# {res.frames_per_point} frames/point, wall {res.wall_s:.1f}s")

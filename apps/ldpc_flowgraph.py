@@ -20,7 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def main() -> None:
     from gr_ldpc_ece535a_tpu.utils import enable_persistent_compile_cache
-    enable_persistent_compile_cache()  # one-time remote compiles per machine
+    enable_persistent_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("graph", help="YAML flowgraph path")
     ap.add_argument("-p", "--param", action="append", default=[],

@@ -64,7 +64,7 @@ def run_native(args) -> None:
 
 def main() -> None:
     from gr_ldpc_ece535a_tpu.utils import enable_persistent_compile_cache
-    enable_persistent_compile_cache()  # one-time remote compiles per machine
+    enable_persistent_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--image", required=True, help="input BMP path")
     ap.add_argument("--out", default="result.bmp", help="output BMP path")

@@ -1,4 +1,4 @@
-"""gr_ldpc_ece535a_tpu — a TPU-native LDPC coded-modulation framework.
+"""gr_ldpc_ece535a_tpu — a JAX LDPC coded-modulation framework for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 GNU Radio OOT module ``ericdegroot/gr-ldpc_ece535a``: GF(2) LDPC encoding,
@@ -8,7 +8,7 @@ simulators, and mesh-sharded multi-chip scaling.
 
 Layout:
   codes/     H-matrix data + host-side GF(2) LU preprocessing
-  ops/       batched device kernels (encode, channel, decode, Pallas BP)
+  ops/       batched device ops (encode, channel, DSP, decode, Triton BP kernel)
   blocks/    streaming block layer (flowgraph, sync state machine, sinks)
   parallel/  jax.sharding mesh utilities, sharded sweeps, stream sharding
   sim/       BER/FER waterfall harness (ldpc_lapack/ldpc_umfpack equivalents)

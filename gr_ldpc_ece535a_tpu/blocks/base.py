@@ -1,9 +1,9 @@
-"""Streaming block layer: the TPU-native analog of the GNU Radio runtime role.
+"""Streaming block layer: the batched analog of the GNU Radio runtime role.
 
 The reference delegates scheduling to GNU Radio: one thread per block,
 single-writer ring buffers, per-block forecast()/general_work() rate
-negotiation (SURVEY.md L0). A thread-per-block design is exactly wrong for a
-TPU — the device wants *large batches*, not symbol-at-a-time handoffs. This
+negotiation (SURVEY.md L0). A thread-per-block design is exactly wrong for an
+accelerator — the device wants *large batches*, not symbol-at-a-time handoffs. This
 runtime instead runs a host-side demand loop over a DAG of blocks; each block
 consumes as much input as it can in one `work()` call and produces a batch,
 so device-backed blocks (encoder/decoder) see thousands of frames per call.

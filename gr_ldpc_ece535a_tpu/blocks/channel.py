@@ -66,8 +66,7 @@ class ChannelModelBlock(Block):
         m = len(data)  # may differ from n when epsilon-resampling
         self._key, sub = jax.random.split(self._key)
         # per-chunk host-side compute (see blocks/dsp.py::_cpu rationale:
-        # streaming chunks are latency-bound, and some TPU backends lack
-        # complex-exp lowerings)
+        # streaming chunks are latency-bound)
         with jax.default_device(jax.devices("cpu")[0]):
             x = jnp.asarray(np.asarray(data, np.complex64))
             kr, ki = jax.random.split(sub)

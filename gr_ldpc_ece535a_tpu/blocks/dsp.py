@@ -24,9 +24,8 @@ def _cpu():
     """Pin a streaming chunk's compute to the host CPU device.
 
     These blocks process modest sequential chunks with loop state carried in
-    Python; dispatching each chunk to a (possibly remote/tunneled) TPU adds
-    round-trip latency per chunk and some backends lack complex convolve
-    lowerings. The batched device DSP for mesh receivers is ops/dsp.py.
+    Python; dispatching each chunk to an accelerator adds a round trip per
+    chunk. The batched device DSP for mesh receivers is ops/dsp.py.
     """
     return jax.default_device(jax.devices("cpu")[0])
 
@@ -192,7 +191,7 @@ class SymbolSyncBlock(Block):
 
 class FreqRecoveryBlock(Block):
     """Coarse carrier-frequency acquisition (the fll_band_edge role in
-    example4/5/6.grc — see ops.dsp.coarse_cfo_estimate for the TPU-native
+    example4/5/6.grc — see ops.dsp.coarse_cfo_estimate for the batched
     feedforward design).
 
     Buffers ``lock_samples`` samples, estimates the CFO once from the

@@ -1,10 +1,10 @@
-"""Headless visualization sinks: the TPU-native analog of the Qt GUI sinks.
+"""Headless visualization sinks: the headless analog of the Qt GUI sinks.
 
 The reference's example flowgraphs observe the live signal through GNU Radio
 Qt GUI sinks — time, histogram, constellation, and frequency displays
 (examples/example1.grc, example4.grc: qtgui histogram/time sinks fed through
 uchar_to_float; SURVEY.md section 5 "Visual observability via Qt GUI
-sinks"). A GUI event loop has no place in a headless TPU pipeline, so the
+sinks"). A GUI event loop has no place in a headless device pipeline, so the
 equivalent here is a sink that buffers a window of the stream and renders
 the same four views to a PNG when the flowgraph stops (or every
 ``refresh_items`` items, for long-running receive chains).

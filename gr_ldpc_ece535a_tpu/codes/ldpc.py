@@ -1,6 +1,6 @@
 """LDPC code construction and host-side GF(2) preprocessing.
 
-This module is the TPU-native replacement for the reference's per-block
+This module is the batched replacement for the reference's per-block
 construction path (reorderHMatrix + LU solves):
 
 - ``reorder_h``      reproduces, bit for bit, the sequential GF(2) Gaussian

@@ -1,10 +1,11 @@
-"""Batched device ops: encode, channel, decode (jnp reference + Pallas)."""
+"""Batched device ops: encode, channel, decode (XLA decoders + Triton kernel)."""
 
 from .bits import pack_bits, pack_bits_np, unpack_bits, unpack_bits_np
 from .channel import awgn, channel_model, ebn0_to_n0
 from .decode import (
     METHODS,
     decode_bitflip,
+    decode_backend,
     decode_bitflip_mp,
     decode_hard,
     decode_minsum,
@@ -21,6 +22,7 @@ __all__ = [
     "bpsk_map",
     "channel_model",
     "decode_bitflip",
+    "decode_backend",
     "decode_bitflip_mp",
     "decode_hard",
     "decode_minsum",

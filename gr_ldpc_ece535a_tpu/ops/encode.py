@@ -3,7 +3,7 @@
 The reference encodes one frame at a time with two dense double-precision
 LAPACK solves (/root/reference/lib/ldpc_encoder_bc_impl.cc:180-223,275-294).
 Here the GF(2) triangular solves are composed offline into the parity operator
-P (codes/ldpc.py), so a whole batch encodes as one small matmul on the MXU:
+P (codes/ldpc.py), so a whole batch encodes as one small matmul:
 
     c = (d @ P^T) mod 2         # (B, K) @ (K, M)
     u = [c | d]                 # codeword order: check bits then data bits

@@ -1,15 +1,15 @@
 """Edge layouts: padded adjacency index maps for the sparse decoders.
 
 The reference scans the full dense H row/column on every message update
-(/root/reference/lib/ldpc_decoder_cb_impl.cc:349-376 etc.). The TPU-native
-representation instead stores messages per *edge* in two padded layouts:
+(/root/reference/lib/ldpc_decoder_cb_impl.cc:349-376 etc.). The batched
+decoders instead store messages per *edge* in two padded layouts:
 
   check-major  (B, M, Wr): slot (m, w) holds the edge to variable chk_nbrs[m, w]
   var-major    (B, N, Wc): slot (j, v) holds the edge to check   var_nbrs[j, v]
 
 with Wr = max row weight, Wc = max column weight (3 for all shipped codes).
 Switching between the two layouts is a static-index gather over the flattened
-edge array (plus one dummy pad slot that always reads 0), so both the check
+edge array (pad slots index one past the end and read 0), so both the check
 and variable updates are contiguous reductions over a tiny trailing axis.
 """
 
@@ -22,45 +22,7 @@ import numpy as np
 
 from ..codes import LdpcCode
 
-__all__ = ["EdgeLayout", "edge_layout", "edge_slots", "pallas_supported",
-           "pallas_split_supported", "MAX_EDGE_SLOTS",
-           "MAX_EDGE_SLOTS_SPLIT"]
-
-# Largest edge-slot count the VMEM-resident pallas kernels are known to
-# compile for on a v5e (the (E, E) Gram plus the message buffers must fit
-# the ~16 MiB VMEM budget). Empirical: E=768 (a generated 128x256 code)
-# compiles at block_b=512; E=1020 and E=1536 fail even at the 256-lane
-# minimum block. Larger codes route to the XLA decoders
-# (make_decoder backend="auto" does this for you). Lives here (pure numpy)
-# so dispatch logic can consult it without importing jax.experimental.pallas.
-MAX_EDGE_SLOTS = 768
-
-# Envelope of the SPLIT pallas kernels (rectangular bcm/bcmT matmuls, VMEM
-# O(N*E + E*block) instead of the Gram's O(E^2)) — they extend coverage
-# beyond MAX_EDGE_SLOTS at ~2x the per-iteration MXU cost. The binding
-# constraint is the two (N, E)/(E, N) constant matrices plus ~4 live
-# (E, block) message buffers against the ~14 MiB usable VMEM; see
-# pallas_bp._auto_block_split.
-MAX_EDGE_SLOTS_SPLIT = 2048
-
-
-def pallas_split_supported(code: LdpcCode) -> bool:
-    """Whether the split pallas kernels fit this code (see pallas_bp)."""
-    E = edge_slots(code)
-    N = code.N
-    # constants 2*N*E*4 bytes + minimum-block (128-lane) message buffers
-    return (E <= MAX_EDGE_SLOTS_SPLIT
-            and 8 * N * E + 16 * E * 128 <= 14 * 2**20)
-
-
-def edge_slots(code: LdpcCode) -> int:
-    """w-major slot count E = max_row_weight * M for this code."""
-    return int(code.H.sum(1).max()) * code.M
-
-
-def pallas_supported(code: LdpcCode) -> bool:
-    """Whether the VMEM-resident pallas kernels fit this code on a TPU core."""
-    return edge_slots(code) <= MAX_EDGE_SLOTS
+__all__ = ["EdgeLayout", "edge_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,26 +36,9 @@ class EdgeLayout:
     var_nbrs: np.ndarray      # (N, Wc) int32, check index per variable slot
     chk_mask: np.ndarray      # (M, Wr) bool, True where a real edge
     var_mask: np.ndarray      # (N, Wc) bool
-    # flat cross-layout gathers (dummy pad slot at the end of each flat array)
+    # flat cross-layout gathers (pads index the slot past the end)
     cm_from_vm: np.ndarray    # (M, Wr) int32 -> index into flat var-major (N*Wc+1)
     vm_from_cm: np.ndarray    # (N, Wc) int32 -> index into flat check-major (M*Wr+1)
-    # one-hot permutation/broadcast matrices (float32 0/1). On TPU the edge
-    # permutations run as tiny MXU matmuls instead of gathers: selecting one
-    # element per row is exact in floating point, and XLA's gather lowering
-    # both is slower on TPU and (with this libtpu) crashes the compiler when
-    # gathers chain across BP iterations.
-    T_vm: np.ndarray          # (M*Wr, N*Wc): flat check-major -> flat var-major
-    T_cm: np.ndarray          # (N*Wc, M*Wr): flat var-major -> flat check-major
-    B_cm: np.ndarray          # (N, M*Wr): per-variable value -> check-major edges
-    B_vm: np.ndarray          # (M, N*Wc): per-check value -> var-major edges
-
-    @property
-    def cm_pad(self) -> int:
-        return self.M * self.Wr
-
-    @property
-    def vm_pad(self) -> int:
-        return self.N * self.Wc
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,33 +77,9 @@ def edge_layout(code: LdpcCode) -> EdgeLayout:
                 j = int(chk[m, w])
                 cm_from_vm[m, w] = j * Wc + vm_slot[(j, m)]
 
-    T_vm = np.zeros((M * Wr, N * Wc), dtype=np.float32)
-    for j in range(N):
-        for v in range(Wc):
-            src = vm_from_cm[j, v]
-            if src < M * Wr:
-                T_vm[src, j * Wc + v] = 1.0
-    T_cm = np.zeros((N * Wc, M * Wr), dtype=np.float32)
-    for m in range(M):
-        for w in range(Wr):
-            src = cm_from_vm[m, w]
-            if src < N * Wc:
-                T_cm[src, m * Wr + w] = 1.0
-    B_cm = np.zeros((N, M * Wr), dtype=np.float32)
-    for m in range(M):
-        for w in range(Wr):
-            if chk_mask[m, w]:
-                B_cm[int(chk[m, w]), m * Wr + w] = 1.0
-    B_vm = np.zeros((M, N * Wc), dtype=np.float32)
-    for j in range(N):
-        for v in range(Wc):
-            if var_mask[j, v]:
-                B_vm[int(var[j, v]), j * Wc + v] = 1.0
-
     return EdgeLayout(
         M=M, N=N, Wr=Wr, Wc=Wc,
         chk_nbrs=chk.astype(np.int32), var_nbrs=var.astype(np.int32),
         chk_mask=chk_mask, var_mask=var_mask,
         cm_from_vm=cm_from_vm, vm_from_cm=vm_from_cm,
-        T_vm=T_vm, T_cm=T_cm, B_cm=B_cm, B_vm=B_vm,
     )

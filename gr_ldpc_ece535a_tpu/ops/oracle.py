@@ -150,6 +150,18 @@ def decode_bit_flipping(rx: np.ndarray, H: np.ndarray, iterations: int) -> np.nd
     return np.asarray(ci, dtype=np.int8)
 
 
+def _atanh2(T: float) -> float:
+    """log((1 + T) / (1 - T)) with C's IEEE semantics at |T| == 1: a
+    saturated tanh gives +-inf where Python's float division and log
+    would raise."""
+    num, den = 1.0 + T, 1.0 - T
+    if den == 0.0:
+        return math.inf
+    if num == 0.0:
+        return -math.inf
+    return math.log(num / den)
+
+
 def decode_sum_product_soft(rx: np.ndarray, H: np.ndarray, iterations: int) -> np.ndarray:
     """Tanh-rule SPA; syndrome checked EVERY iteration, +r(i) per connected check."""
     m, n = H.shape
@@ -171,7 +183,7 @@ def decode_sum_product_soft(rx: np.ndarray, H: np.ndarray, iterations: int) -> n
                 for k in rows[j]:
                     if k != i:
                         T *= th[k]
-                E[(j, i)] = math.log((1.0 + T) / (1.0 - T))
+                E[(j, i)] = _atanh2(T)
         # Tentative decision (r(i) added once per connected check — nonstandard,
         # reproduced faithfully; see lib/ldpc_decoder_cb_impl.cc:523)
         for i in range(n):

@@ -1,89 +1,24 @@
-"""Pallas TPU kernels for the belief-propagation inner loop.
+"""Belief-propagation decode kernel for NVIDIA GPUs (Pallas, Triton route).
 
-The XLA/jnp decoders (ops/decode.py) materialize every message array in HBM
-each iteration; these kernels keep the whole BP state VMEM-resident across
-all iterations: per grid program a batch tile of frames is loaded once,
-iterated to completion, and only the hard decisions leave the chip.
+The XLA decoders in ops/decode.py write every (B, E) message array to device
+memory on each iteration. This kernel keeps a tile of frames' messages on
+chip for all iterations: each program owns ``TILE`` frames (one per thread),
+loads their received symbols once, iterates, and writes only the hard
+decisions.
 
-Three kernel modes, trading hard-decision fidelity against throughput
-(honest wall-clock on a v5e chip, 131072 frames x 20 iterations, reference
-32x64 code; timings from bench.py's chained-slope harness):
+The Tanner graph is a compile-time constant, so the kernel carries the
+messages as one (TILE,) vector per edge and wires the check and variable
+updates in Python. Moving a message between the check-major and var-major
+views is a renaming of traced values: no gather, one-hot product or shared
+memory traffic runs on the device. The arithmetic follows ops/decode.py
+operation for operation (same exclusion scans, same summation order), so in
+interpret mode the kernel reproduces the XLA f32 decoders' hard decisions
+exactly. On the GPU, libdevice's tanh and log differ from XLA's in the last
+bits, so sum-product decisions can differ on frames at the decoding limit.
 
-  mode="exact"   — check-major (M, Wr) layout, HIGHEST-precision (bf16x6)
-                   one-hot matmuls, prefix/suffix exclusion scans. Hard
-                   decisions identical to the jnp f32 path (asserted in
-                   tests/test_pallas.py, interpret mode). ~15-24 ms.
-  mode="precise" — w-major layout (below) with STACKED hi/lo-split
-                   aggregation: every f32 operand is split x == hi + lo
-                   with hi = bf16(x), the halves stacked along the
-                   contraction axis, and ONE bf16 MXU matmul run against
-                   the doubled matrix [A | A], recovering ~17 mantissa
-                   bits. (Contraction 2E = 384 = 3x128 MXU chunks exactly;
-                   two separate passes each pad E=192 to 2x128 — the stack
-                   is 26-37% faster at identical arithmetic, see
-                   tools/proto_r3.py.) Hard decisions match the jnp f32
-                   path exactly in interpret mode (asserted in tests) and
-                   to ~4e-5 on hardware under the reference's early-exit
-                   semantics, with every recorded disagreement confined to
-                   frames at the decoding limit (on-TPU parity counters +
-                   decomposition recorded per round in BENCH_r*.json; see
-                   docs/kernels.md for the error-bound argument and the
-                   measured breakdown). ~2.7-2.9 ms (1.45-1.55 Gbit/s
-                   under the round-4 full loop unroll; 1.0-1.2 before).
-  mode="fast"    — same algorithm, single-pass bf16 MXU aggregation
-                   (messages rounded to bf16 at the segment-sum only).
-                   >=99.2% frame agreement at 20 iterations; disagreements
-                   concentrate on frames that fail to converge either way.
-                   ~1.7-2.5 ms (min-sum 2.5, SPA 1.7 Gbit/s under the
-                   round-4 unroll) — the production path.
-
-Two structural optimizations keep the per-iteration work minimal:
-
-  * min-excluding-self is an exclusive prefix/suffix min pass
-    (_excl_min_axis0) — exactly `min_{k != j} beta` with no min1/min2 +
-    first-argmin tie machinery (~14 row-ops vs ~40).
-  * the one-hot gather distributes exactly over addition (each edge column
-    selects a single variable), so the variable step
-    gather(Lci + sum_per_var(Lr)) - Lr collapses to `base + G' @ msgs` with
-    base = gather(Lci) + padbig hoisted out of the loop (computed once at
-    HIGHEST precision) and G' = bcm.T @ bcm - I the zero-diagonal edge Gram
-    matrix: one (E, E) MXU matmul per iteration computes the
-    sum-over-OTHER-edges-of-the-variable directly, and the tentative LLR
-    LQ is assembled only once after the loop (fixed-iteration mode).
-
-The fast/precise kernels use a **w-major edge layout**: slot (w, m) holds
-the w-th edge of check m at flat index e = w*M + m, so messages reshape
-(Wr*M, Bt) -> (Wr, M, Bt) for free (planes are whole sublane-tile groups)
-and check-node reductions become Wr-step pairwise trees over full vector
-registers. Wr is the true max row weight (6 for the reference code — 24 pad
-slots total vs 88 for a power-of-two-padded check-major layout), so every
-VPU op touches only real-edge rows. Check->variable aggregation and
-variable->edge broadcast are one-hot matmuls on the MXU (exact for 0/1
-matrices up to the accumulation precision chosen per mode). Pad slots carry
-+1e30 through the whole loop via a precomputed additive vector, costing zero
-per-iteration mask ops: tanh(+1e30) = 1 contributes log 1 = 0 to the phi
-sums and +1 to the sign products.
-
-Sum-product check messages are evaluated in the self-inverse phi domain
-(phi(x) = -log tanh(x/2)): |E(e)| = phi(sum_k phi(|M_k|) - phi(|M_e|)),
-sign(E(e)) = prod_k sign(M_k) / sign(M_e), replacing the reference's
-per-edge exclusion products (/root/reference/lib/ldpc_decoder_cb_impl.cc:
-501-516) with one row reduction plus one subtraction — mathematically the
-same tanh rule, reassociated. The min-sum kernels keep the reference's
-min-sum arithmetic (:309-412): sign(0) = 0 zeroes the whole row's messages,
-and the excluded min is computed directly (prefix/suffix pass in fast/
-precise; the exact kernel reproduces the first-occurrence argmin tie rule,
-which yields the identical value).
-
-The variable-node step uses the identity Lq(e) = LQ(var(e)) - Lr(e)
-(exactly the reference's update form, lib/ldpc_decoder_cb_impl.cc:390) so
-no per-edge permutation between check/variable layouts is ever needed.
-
-Known deviations of fast/precise vs the C++ double oracle: floating-point
-reassociation of the 2-3 term variable sums (shared with the jnp f32 path),
-the phi-domain reassociation of the check product, and (fast only) bf16
-rounding at aggregation. Exact-zero LLR inputs (measure-zero under AWGN) hit
-a phi clamp at 1e4 instead of the reference's literal +-DBL_MAX messages.
+Envelope: the unrolled program grows with the edge count, and its compile
+time faster still (see ``MAX_EDGES``). Codes with more than ``MAX_EDGES``
+edges use the XLA decoders (``ops.decode.decode_backend``).
 """
 
 from __future__ import annotations
@@ -94,901 +29,297 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..codes import LdpcCode
-from .layout import (MAX_EDGE_SLOTS, MAX_EDGE_SLOTS_SPLIT, edge_layout,
-                     edge_slots, pallas_split_supported, pallas_supported)
 
 __all__ = ["pallas_decode_minsum", "pallas_decode_sumproduct",
-           "pallas_supported", "pallas_split_supported", "edge_slots",
-           "MAX_EDGE_SLOTS", "MAX_EDGE_SLOTS_SPLIT"]
+           "kernel_supported", "MAX_EDGES", "TILE"]
 
-_HIGHEST = jax.lax.Precision.HIGHEST
-_BIG = np.float32(1e30)
-_PHI_CLAMP = np.float32(1e4)
-# Fixed-iteration SPLIT kernels process this many independent half-width
-# batch chains interleaved in the unrolled trace, so the Mosaic scheduler
-# can fill the MXU during the sibling chain's VPU check step (and vice
-# versa). 2 measured best on the E=768 code (tools/bench_large_r5.py);
-# falls back to 1 when the tile isn't divisible.
-_SPLIT_LANES = 2
+TILE = 128       # frames per program, one per thread
+NUM_WARPS = 4    # 4 warps x 32 threads = TILE
+# Largest edge count routed to the kernel. The fully unrolled kernel's
+# compile time grows faster than its size: on an H100, 168 edges (the
+# reference code) compile in 20-32 s per variant, 384 edges in 311 s, and
+# 768 edges did not finish within 10 minutes.
+MAX_EDGES = 192
 
 
-def _full_unroll(n_steps: int) -> int:
-    """Unroll factor for the fixed-iteration BP loops: Mosaic's fori_loop
-    supports only unroll=1 or full unroll (= trip count), and the fully
-    unrolled straight-line region lets the scheduler software-pipeline the
-    check step's VPU work under the neighboring iteration's Gram MXU
-    matmul — measured +15-38% on the precise kernels at 20 iterations
-    (tools/proto_r4.py: SPA 1.05 -> 1.45 Gbit/s, min-sum 1.35 -> 1.59 at
-    b2048). Capped at 32 steps to bound compile time for unusually high
-    iteration counts."""
-    return n_steps if 1 <= n_steps <= 32 else 1
+def kernel_supported(code: LdpcCode) -> bool:
+    """Whether ``code`` is inside the kernel's envelope (edge count)."""
+    return code.n_edges <= MAX_EDGES
 
-
-# ---------------------------------------------------------------------------
-# shared small-axis trees (cumsum/argmin/reduce_prod have no Mosaic lowering)
-# ---------------------------------------------------------------------------
-
-def _tree(op, x):
-    """Pairwise reduction over axis 0 (any width), keepdims."""
-    w = x.shape[0]
-    while w > 1:
-        h = w // 2
-        y = op(x[:h], x[h:2 * h])
-        x = jnp.concatenate([y, x[2 * h:]], axis=0) if w % 2 else y
-        w = x.shape[0]
-    return x
-
-
-def _excl_prefix_sum(x: jax.Array) -> jax.Array:
-    """Exclusive prefix sum along axis 1, unrolled. x: (M, W, Bt)."""
-    W = x.shape[1]
-    parts = [jnp.zeros_like(x[:, :1])]
-    acc = x[:, 0:1]
-    for w in range(1, W):
-        parts.append(acc)
-        acc = acc + x[:, w : w + 1]
-    return jnp.concatenate(parts, axis=1)
-
-
-def _excl_prefix_prod(x: jax.Array) -> jax.Array:
-    W = x.shape[1]
-    parts = [jnp.ones_like(x[:, :1])]
-    acc = x[:, 0:1]
-    for w in range(1, W):
-        parts.append(acc)
-        acc = acc * x[:, w : w + 1]
-    return jnp.concatenate(parts, axis=1)
-
-
-def _excl_suffix_prod(x: jax.Array) -> jax.Array:
-    W = x.shape[1]
-    parts = [jnp.ones_like(x[:, :1])]
-    acc = x[:, W - 1 : W]
-    for w in range(W - 2, -1, -1):
-        parts.append(acc)
-        acc = acc * x[:, w : w + 1]
-    return jnp.concatenate(parts[::-1], axis=1)
-
-
-def _excl_min_axis0(x: jax.Array, big) -> tuple[jax.Array, jax.Array]:
-    """(min over k != w along axis 0, min over all) via exclusive
-    prefix/suffix min passes. x: (W, M, Bt), entries >= 0.
-
-    Exactly `min_{k != j} beta(i,k)` (lib/ldpc_decoder_cb_impl.cc:361-371's
-    double loop) — ties need no special handling because the excluded min is
-    computed directly rather than via min1/min2 + first-argmin. ~14 row-ops
-    vs ~40 for the tie-breaking formulation.
-    """
-    W = x.shape[0]
-    fill = jnp.full_like(x[:1], big)
-    pparts = [fill]
-    acc = x[0:1]
-    for w in range(1, W):
-        pparts.append(acc)
-        acc = jnp.minimum(acc, x[w : w + 1])
-    min_all = acc                          # (1, M, Bt)
-    sparts = [fill]
-    acc = x[W - 1 : W]
-    for w in range(W - 2, -1, -1):
-        sparts.append(acc)
-        acc = jnp.minimum(acc, x[w : w + 1])
-    pref = jnp.concatenate(pparts, axis=0)
-    suf = jnp.concatenate(sparts[::-1], axis=0)
-    return jnp.minimum(pref, suf), min_all
-
-
-# ---------------------------------------------------------------------------
-# exact kernels (check-major layout, HIGHEST-precision aggregation)
-# ---------------------------------------------------------------------------
-
-def _minsum_exact_kernel(iterations: int, M: int, Wr: int, N: int,
-                         rx_ref, bcm_ref, cmask_ref, out_ref):
-    """One batch tile: rx (N, Bt) -> vhat (N, Bt), fully VMEM-resident.
-
-    Pad slots carry +FLT_MAX through the whole loop (a padded |Lq| can never
-    win a minimum and its positive sign is the product identity); the
-    min-excluding-self uses the min1/min2/first-argmin trick with an
-    unrolled exclusive prefix count for the C++ first-occurrence tie rule.
-    """
-    Bt = rx_ref.shape[1]
-    E = M * Wr
-    big = jnp.float32(np.finfo(np.float32).max)
-
-    Lci = -rx_ref[:]                      # (N, Bt)
-    bcm = bcm_ref[:]                      # (N, E) one-hot: edge -> its variable
-    cmask = cmask_ref[:]                  # (E, 1) 1.0 on real edges
-    mask3 = cmask.reshape(M, Wr, 1) > 0
-
-    Lq0 = jax.lax.dot_general(
-        bcm, Lci, (((0,), (0,)), ((), ())), precision=_HIGHEST,
-        preferred_element_type=jnp.float32)  # (E, Bt)
-    Lq0 = jnp.where(mask3.reshape(E, 1), Lq0, big)
-
-    def body(_i, carry):
-        Lq, _LQ = carry
-        t = Lq.reshape(M, Wr, Bt)
-        beta = jnp.abs(t)                                   # pads: +big
-        neg = t < 0                                         # pads: False
-        negcnt = jnp.sum(neg.astype(jnp.float32), axis=1, keepdims=True)
-        min1 = jnp.min(beta, axis=1, keepdims=True)
-        parity = 1.0 - 2.0 * (negcnt - 2.0 * jnp.floor(negcnt * 0.5))
-        prod_alpha = jnp.where(min1 == 0, 0.0, parity)      # sign(0)=0
-        is_min = (beta == min1).astype(jnp.float32)
-        first_min = jnp.logical_and(is_min > 0, _excl_prefix_sum(is_min) < 1.0)
-        min2 = jnp.min(jnp.where(first_min, big, beta), axis=1, keepdims=True)
-        min_excl = jnp.where(first_min, min2, min1)
-        pame = prod_alpha * min_excl
-        Lr3 = jnp.where(neg, -pame, pame)
-        Lr3 = jnp.where(beta == 0, 0.0, Lr3)                # sign(0) = 0
-        Lr = Lr3.reshape(E, Bt)
-        A = jnp.dot(bcm, Lr, precision=_HIGHEST,
-                    preferred_element_type=jnp.float32)     # (N, Bt)
-        LQ = Lci + A
-        LQE = jax.lax.dot_general(
-            bcm, LQ, (((0,), (0,)), ((), ())), precision=_HIGHEST,
-            preferred_element_type=jnp.float32)             # (E, Bt)
-        Lq_new = jnp.where(mask3.reshape(E, 1), LQE - Lr, big)
-        return Lq_new, LQ
-
-    _, LQ = jax.lax.fori_loop(0, iterations, body, (Lq0, Lci))
-    out_ref[:] = (LQ < 0).astype(jnp.int8)
-
-
-def _sumproduct_exact_kernel(iterations: int, M: int, Wr: int, N: int,
-                             rx_ref, bcm_ref, cmask_ref, out_ref):
-    """Tanh-rule SPA tile kernel, prefix/suffix exclusion products
-    (decodeSumProductSoft semantics at fixed iteration count; the
-    nonstandard +r(i) per connected check is kept)."""
-    Bt = rx_ref.shape[1]
-    E = M * Wr
-    r = -rx_ref[:]                        # (N, Bt)
-    bcm = bcm_ref[:]                      # (N, E)
-    cmask = cmask_ref[:]                  # (E, 1)
-    mask3 = cmask.reshape(M, Wr, 1)
-    deg = jnp.sum(bcm, axis=1, keepdims=True)  # per-variable check degree
-
-    Mmsg0 = jax.lax.dot_general(
-        bcm, r, (((0,), (0,)), ((), ())), precision=_HIGHEST,
-        preferred_element_type=jnp.float32)   # (E, Bt)
-    rE = Mmsg0
-
-    def body(_i, carry):
-        Mmsg, _L = carry
-        t = jnp.where(mask3 > 0, jnp.tanh(Mmsg.reshape(M, Wr, Bt) / 2.0), 1.0)
-        T = _excl_prefix_prod(t) * _excl_suffix_prod(t)
-        E_msg = jnp.log((1.0 + T) / (1.0 - T)).reshape(E, Bt) * cmask
-        AE = jnp.dot(bcm, E_msg, precision=_HIGHEST,
-                     preferred_element_type=jnp.float32)          # (N, Bt)
-        L = AE + deg * r
-        LE = jax.lax.dot_general(
-            bcm, L, (((0,), (0,)), ((), ())), precision=_HIGHEST,
-            preferred_element_type=jnp.float32)
-        Mnew = (LE - E_msg - rE) * cmask
-        return Mnew, L
-
-    _, L = jax.lax.fori_loop(0, iterations, body, (Mmsg0, r))
-    out_ref[:] = (L <= 0).astype(jnp.int8)
-
-
-# ---------------------------------------------------------------------------
-# fast/precise kernels (w-major layout)
-# ---------------------------------------------------------------------------
-
-def _make_split_mm(precise: bool):
-    """One-hot aggregation matmuls on the bf16 MXU, as (split, mm).
-
-    precise=True splits the f32 operand x == hi + lo (hi = bf16(x),
-    recovering ~17 mantissa bits) and STACKS the halves along the
-    contraction axis: mm multiplies against a doubled matrix A2 = [A | A]
-    in ONE matmul with contraction 2E. For the reference code 2E = 384 =
-    3x128 MXU chunks exactly, vs two separate passes each padding E=192 to
-    2x128 — 6 tile passes instead of 8, measured 26-37% faster than the
-    two-pass formulation at identical arithmetic (tools/proto_r3.py; the
-    halves accumulate in the same f32 accumulator, so only the summation
-    order across the hi/lo boundary can differ from two passes, by <= 1
-    ulp). precise=False rounds the operand to bf16 (8 bits) and multiplies
-    against the single-width matrix.
-
-    Callers split once per loop iteration and may reuse the split operand
-    across several mm calls (the early-exit path multiplies the same
-    messages by both the Gram and the edge->variable matrix).
-    """
-    if precise:
-        def split(x):
-            hi = x.astype(jnp.bfloat16).astype(jnp.float32)
-            return jnp.concatenate([hi, x - hi], axis=0)   # (2E, Bt)
-    else:
-        def split(x):
-            return x
-
-    def mm(a, s):
-        return jnp.dot(a, s, preferred_element_type=jnp.float32)
-
-    return split, mm
-
-
-def _pad_done(n_valid: int, Bt: int):
-    """Initial done mask: 1.0 on batch-padding columns (global index >=
-    n_valid) so all-zero pad frames can't stall the convergence loop (an
-    all-zero rx decodes to all-ones under the SPA's <=0 rule, which never
-    satisfies odd-weight checks)."""
-    col = (pl.program_id(0) * Bt
-           + jax.lax.broadcasted_iota(jnp.int32, (1, Bt), 1))
-    return (col >= n_valid).astype(jnp.float32)
-
-
-def _unsat(Hf, vhat_f):
-    """Unsatisfied-check count per frame: sum(H @ vhat mod 2). (1, Bt).
-
-    vhat entries are 0/1 and row weights <= 8, so the bf16 MXU pass is
-    exact (small integers).
-    """
-    s = jnp.dot(Hf, vhat_f, preferred_element_type=jnp.float32)  # (M, Bt)
-    p = s - 2.0 * jnp.floor(s * 0.5)
-    return jnp.sum(p, axis=0, keepdims=True)
-
-
-def _sumproduct_fast_kernel(iterations: int, M: int, Wr: int, N: int,
-                            precise: bool, early_exit: bool, n_valid: int,
-                            rx_ref, bcm_ref, gram_ref, padbig_ref, h_ref,
-                            out_ref):
-    Bt = rx_ref.shape[1]
-    E = Wr * M
-    split, mm = _make_split_mm(precise)
-    r = -rx_ref[:]                          # (N, Bt)
-    bcm2 = bcm_ref[:]                       # (N, E); precise: (N, 2E)=[b|b]
-    bcm = bcm2[:, :E]
-    G2 = gram_ref[:]                        # (E, E) edge Gram bcm.T @ bcm;
-    padbig = padbig_ref[:]                  # precise: (E, 2E) = [G | G]
-    deg = jnp.sum(bcm, axis=1, keepdims=True)
-    degr = deg * r
-
-    def gather(x):  # one-hot row gather, exact (HIGHEST = full f32)
-        return jax.lax.dot_general(bcm, x, (((0,), (0,)), ((), ())),
-                                   precision=_HIGHEST,
-                                   preferred_element_type=jnp.float32)
-
-    # The per-iteration variable step mmT(bcm, L - r) distributes EXACTLY
-    # over the one-hot gather (each edge column of bcm selects one variable),
-    # so with L - r = mm(bcm, Em) + (deg-1)*r it splits into a loop-invariant
-    # base and a single (E, E) Gram matmul per iteration:
-    #   Mnew = gather((deg-1)*r) + padbig + G @ Em - Em
-    # dropping the tentative-LLR assembly from the loop entirely (L is only
-    # needed for the final hard decision / the early-exit syndrome).
-    base = gather((deg - 1.0) * r) + padbig
-    Mmsg0 = gather(r) + padbig
-
-    def check_step(Mmsg):
-        t = Mmsg.reshape(Wr, M, Bt)
-        sg = jnp.where(t < 0, -1.0, 1.0)
-        # w = log tanh(|t|/2) = -phi(|t|) <= 0; pads: log tanh(1e30) = 0.
-        # The clamp keeps exact-zero messages finite (phi capped at 1e4).
-        w = jnp.maximum(jnp.log(jnp.tanh(jnp.abs(t) * 0.5)), -_PHI_CLAMP)
-        U = _tree(jnp.add, w)               # (1, M, Bt) row phi-sum
-        negP = -_tree(jnp.multiply, sg)     # -(row sign product)
-        v = w - U                           # phi-sum excluding self, >= 0
-        # |E| = phi(v); sign = rowprod/sign(self); both negations fold into
-        # negP so E arrives with the right sign in one multiply chain
-        return ((negP * sg) * jnp.log(jnp.tanh(v * 0.5))).reshape(E, Bt)
-
-    if not early_exit:
-        # the last iteration's bit-message update is dead (only Em feeds
-        # the final LLR), so loop iterations-1 times and run one trailing
-        # check step — one fewer Gram matmul + split per decode, and the
-        # carry holds only the messages
-        def body(_i, Mmsg):
-            return base + mm(G2, split(check_step(Mmsg)))
-        Mlast = jax.lax.fori_loop(0, iterations - 1, body, Mmsg0,
-                                  unroll=_full_unroll(iterations - 1))
-        Em = (check_step(Mlast) if iterations > 0
-              else jnp.zeros_like(Mmsg0))
-        L = mm(bcm2, split(Em)) + degr
-        out_ref[:] = (L <= 0).astype(jnp.int8)
-        return
-
-    # early exit: the reference checks the syndrome EVERY iteration, before
-    # the bit-message update, with no iteration guard
-    # (lib/ldpc_decoder_cb_impl.cc:534-537); converged frames freeze
-    Hf = h_ref[:]                           # (M, N)
-
-    def cond(carry):
-        i, _Mmsg, _L, done = carry
-        return jnp.logical_and(i < iterations, jnp.min(done) < 1.0)
-
-    def wbody(carry):
-        i, Mmsg, L, done = carry
-        Em = check_step(Mmsg)
-        S = split(Em)   # one split feeds both aggregations
-        Lnew = mm(bcm2, S) + degr
-        Mnew = base + mm(G2, S)
-        L = jnp.where(done > 0, L, Lnew)
-        vhat_f = (Lnew <= 0).astype(jnp.float32)
-        done = jnp.maximum(done, (_unsat(Hf, vhat_f) == 0).astype(jnp.float32))
-        Mmsg = jnp.where(done > 0, Mmsg, Mnew)
-        return i + 1, Mmsg, L, done
-
-    _, _, L, _ = jax.lax.while_loop(
-        cond, wbody, (0, Mmsg0, r, _pad_done(n_valid, Bt)))
-    out_ref[:] = (L <= 0).astype(jnp.int8)
-
-
-def _minsum_fast_kernel(iterations: int, M: int, Wr: int, N: int,
-                        precise: bool, early_exit: bool, n_valid: int,
-                        norm_offset: float, norm_scale: float,
-                        rx_ref, bcm_ref, gram_ref, padbig_ref, h_ref,
-                        out_ref):
-    Bt = rx_ref.shape[1]
-    E = Wr * M
-    big = jnp.float32(np.finfo(np.float32).max)
-    split, mm = _make_split_mm(precise)
-    Lci = -rx_ref[:]
-    bcm2 = bcm_ref[:]                       # (N, E); precise: (N, 2E)=[b|b]
-    bcm = bcm2[:, :E]
-    G2 = gram_ref[:]                        # (E, E) edge Gram bcm.T @ bcm;
-    padbig = padbig_ref[:]                  # precise: (E, 2E) = [G | G]
-
-    def gather(x):  # one-hot row gather, exact (HIGHEST = full f32)
-        return jax.lax.dot_general(bcm, x, (((0,), (0,)), ((), ())),
-                                   precision=_HIGHEST,
-                                   preferred_element_type=jnp.float32)
-
-    # Variable step Lq = gather(Lci + mm(bcm, Lr)) - Lr distributes exactly
-    # over the one-hot gather, so the loop carries only check messages and
-    # does ONE matmul per iteration (the tentative LLR LQ is assembled once
-    # after the loop, or per-iteration only under early_exit):
-    #   Lq_new = gather(Lci) + padbig + G @ Lr - Lr
-    base = gather(Lci) + padbig
-    Lq0 = base
-
-    def check_step(Lq):
-        t = Lq.reshape(Wr, M, Bt)
-        beta = jnp.abs(t)                   # pads: 1e30
-        sg = jnp.where(t < 0, -1.0, 1.0)
-        P = _tree(jnp.multiply, sg)         # full-row sign product
-        min_excl, min1 = _excl_min_axis0(beta, big)
-        prod_alpha = jnp.where(min1 == 0, 0.0, P)   # sign(0)=0 zeroes the row
-        if norm_offset != 0.0:  # offset min-sum correction (extension)
-            min_excl = jnp.maximum(min_excl - norm_offset, 0.0)
-        if norm_scale != 1.0:   # normalized min-sum correction (extension)
-            min_excl = min_excl * norm_scale
-        return (sg * (prod_alpha * min_excl)).reshape(E, Bt)
-
-    if not early_exit:
-        # last iteration's Lq update is dead — see the sum-product kernel
-        def body(_i, Lq):
-            return base + mm(G2, split(check_step(Lq)))
-        Lqlast = jax.lax.fori_loop(0, iterations - 1, body, Lq0,
-                                   unroll=_full_unroll(iterations - 1))
-        Lr = (check_step(Lqlast) if iterations > 0
-              else jnp.zeros_like(Lq0))
-        LQ = Lci + mm(bcm2, split(Lr))
-        out_ref[:] = (LQ < 0).astype(jnp.int8)
-        return
-
-    # early exit: per-frame freeze on syndrome success (the reference breaks
-    # out of the iteration loop, lib/ldpc_decoder_cb_impl.cc:405-408; the
-    # batched equivalent freezes converged frames, as in ops/decode.py)
-    Hf = h_ref[:]                           # (M, N)
-
-    def cond(carry):
-        i, _Lq, _LQ, done = carry
-        return jnp.logical_and(i < iterations, jnp.min(done) < 1.0)
-
-    def wbody(carry):
-        i, Lq, LQ, done = carry
-        Lr = check_step(Lq)
-        S = split(Lr)   # one split feeds both aggregations
-        LQ_new = Lci + mm(bcm2, S)
-        Lq_new = base + mm(G2, S)
-        Lq = jnp.where(done > 0, Lq, Lq_new)
-        LQ = jnp.where(done > 0, LQ, LQ_new)
-        vhat_f = (LQ_new < 0).astype(jnp.float32)
-        done = jnp.maximum(done, (_unsat(Hf, vhat_f) == 0).astype(jnp.float32))
-        return i + 1, Lq, LQ, done
-
-    _, _, LQ, _ = jax.lax.while_loop(
-        cond, wbody, (0, Lq0, Lci, _pad_done(n_valid, Bt)))
-    out_ref[:] = (LQ < 0).astype(jnp.int8)
-
-
-# ---------------------------------------------------------------------------
-# launchers
-# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _wmajor_layout(code: LdpcCode):
-    """(bcm, gram, padbig, Wr): one-hot edge->variable matrix (w-major slot
-    order) and its edge Gram G = bcm.T @ bcm — G[e, e'] = 1 iff edges e, e'
-    touch the same variable, so G @ msgs is the fused
-    per-variable-sum-then-broadcast-back of the BP variable step."""
-    H = code.H
-    M, N = H.shape
-    Wr = int(H.sum(1).max())
-    E = Wr * M
-    bcm = np.zeros((N, E), np.float32)
-    for m in range(M):
-        js = np.flatnonzero(H[m])
-        for w, j in enumerate(js):
-            bcm[j, w * M + m] = 1.0
-    gram = (bcm.T @ bcm).astype(np.float32)
-    np.fill_diagonal(gram, 0.0)  # exclusive: sum over OTHER edges of the var
-    padbig = ((bcm.sum(0) == 0) * _BIG).astype(np.float32).reshape(E, 1)
-    return bcm, gram, padbig, Wr
+def _wiring(code: LdpcCode):
+    """Static Tanner-graph wiring over real edges in check-major order.
+
+    Returns (checks, edge_var, variables): checks[m] the edge ids of check m
+    in slot order, edge_var[e] the variable of edge e, variables[j] the edge
+    ids of variable j in var-major slot order (ascending check index, as
+    ``code.var_nbrs``).
+    """
+    checks, edge_var, slot = [], [], {}
+    for m in range(code.M):
+        ids = []
+        for j in code.chk_nbrs[m, :code.chk_deg[m]]:
+            slot[(m, int(j))] = len(edge_var)
+            ids.append(len(edge_var))
+            edge_var.append(int(j))
+        checks.append(tuple(ids))
+    variables = tuple(
+        tuple(slot[(int(m), j)] for m in code.var_nbrs[j, :code.var_deg[j]])
+        for j in range(code.N))
+    return tuple(checks), tuple(edge_var), variables
+
+
+def _sign(x):
+    """(x > 0) - (x < 0), as ops.decode._sign (sign(0) = 0)."""
+    return (x > 0).astype(x.dtype) - (x < 0).astype(x.dtype)
+
+
+def _excl(vals, op):
+    """[op over all k != w of vals[k] for each w], by prefix/suffix passes."""
+    d = len(vals)
+    pre, suf = [None] * d, [None] * d
+    for w in range(1, d):
+        pre[w] = vals[w - 1] if pre[w - 1] is None else op(pre[w - 1], vals[w - 1])
+    for w in range(d - 2, -1, -1):
+        suf[w] = vals[w + 1] if suf[w + 1] is None else op(suf[w + 1], vals[w + 1])
+    return [p if s is None else s if p is None else op(p, s)
+            for p, s in zip(pre, suf)]
+
+
+def _syndrome_ok(bits, checks, edge_var):
+    """Per-frame all-checks-satisfied flag (int32 0/1) from int32 0/1 bits."""
+    unsat = None
+    for edges in checks:
+        par = bits[edge_var[edges[0]]]
+        for e in edges[1:]:
+            par = par ^ bits[edge_var[e]]
+        unsat = par if unsat is None else unsat | par
+    return (unsat == 0).astype(jnp.int32)
+
+
+def _pack(bits):
+    """N int32 0/1 vectors -> ceil(N/32) int32 words (bit j%32 of word j//32)."""
+    words = []
+    for k in range(0, len(bits), 32):
+        w = bits[k]
+        for i, b in enumerate(bits[k + 1:k + 32], start=1):
+            w = w | (b << i)
+        words.append(w)
+    return words
+
+
+def _store_words(out_ref, words, n):
+    for j in range(n):
+        out_ref[j, :] = ((words[j // 32] >> (j % 32)) & 1).astype(jnp.int8)
+
+
+def _pad_done(n_valid):
+    """Initial done flag: 1 on batch-padding frames, so an all-zero pad frame
+    cannot keep a tile's early-exit loop running."""
+    col = pl.program_id(0) * TILE + jax.lax.broadcasted_iota(
+        jnp.int32, (TILE,), 0)
+    return (col >= n_valid).astype(jnp.int32)
 
 
 # ---------------------------------------------------------------------------
-# split kernels for codes whose (E, E) Gram exceeds VMEM
+# min-sum (ops.decode.decode_minsum)
 # ---------------------------------------------------------------------------
-#
-# For E > MAX_EDGE_SLOTS the Gram matrix no longer fits, but the same
-# variable step factors through the rectangular one-hot matrices:
-#   sum-over-other-edges(x)[e] = (bcmT @ (bcm @ x))[e] - x[e]
-# with VMEM O(N*E + E*Bt) instead of O(E^2). The two chained matmuls
-# serialize per iteration (measured 1.9x slower than the Gram form on the
-# reference code, tools/proto_r2.py "split"), so the Gram kernels stay the
-# fast path for small codes and these extend coverage to larger ones
-# (MAX_EDGE_SLOTS_SPLIT in ops.layout records the measured envelope).
 
-def _make_mm2(precise: bool):
-    """STACKED hi/lo (precise) or single bf16 (fast) matmul for the split
-    kernels, as (splitv, mm): precise splits x == hi + lo and stacks the
-    halves along the contraction axis, multiplying against a doubled
-    matrix [A | A] in one pass — the same trick as the Gram path's
-    _make_split_mm. The split path's contraction dims (E and N) are
-    already multiples of 128 so no MXU tiles are saved, but one fused
-    matmul replaces two dependent dispatches per aggregation (measured
-    +5-9% on the E=768 code, round 5 — tools/bench_large_r5.py: two-pass
-    0.57-0.64e9, stacked 0.61-0.67e9 at 20 iterations. That is within 3%
-    of the kernel's own matmul-only skeleton (0.683e9 measured with the
-    check step stubbed to one multiply), i.e. the precise split path is
-    MAC-bound at its structural minimum of 4*N*E MACs/frame/iteration —
-    hi/lo aggregation + hi/lo gather; further gains need fewer MACs, not
-    better scheduling)."""
-    if precise:
-        def splitv(x):
-            hi = x.astype(jnp.bfloat16).astype(jnp.float32)
-            return jnp.concatenate([hi, x - hi], axis=0)
-    else:
-        def splitv(x):
-            return x
-
-    def mm2(a, s):
-        return jnp.dot(a, s, preferred_element_type=jnp.float32)
-
-    return splitv, mm2
-
-
-def _sumproduct_split_kernel(iterations: int, M: int, Wr: int, N: int,
-                             precise: bool, early_exit: bool, n_valid: int,
-                             rx_ref, bcm_ref, bcmT_ref, padbig_ref, h_ref,
-                             out_ref):
-    Bt = rx_ref.shape[1]
-    E = Wr * M
-    splitv, mm = _make_mm2(precise)
-    r = -rx_ref[:]                          # (N, Bt)
-    bcm2 = bcm_ref[:]                       # (N, E); precise: (N, 2E)=[b|b]
-    bcm = bcm2[:, :E]
-    bcmT2 = bcmT_ref[:]                     # (E, N); precise: (E, 2N)
-    padbig = padbig_ref[:]
-    deg = jnp.sum(bcm, axis=1, keepdims=True)
-    degr = deg * r
-
-    def gather(x):
-        return jax.lax.dot_general(bcm, x, (((0,), (0,)), ((), ())),
-                                   precision=_HIGHEST,
-                                   preferred_element_type=jnp.float32)
-
-    base = gather((deg - 1.0) * r) + padbig
-    Mmsg0 = gather(r) + padbig
-
-    def check_step(Mmsg):
-        t = Mmsg.reshape(Wr, M, Mmsg.shape[1])
-        sg = jnp.where(t < 0, -1.0, 1.0)
-        w = jnp.maximum(jnp.log(jnp.tanh(jnp.abs(t) * 0.5)), -_PHI_CLAMP)
-        U = _tree(jnp.add, w)
-        negP = -_tree(jnp.multiply, sg)
-        v = w - U
-        return ((negP * sg) * jnp.log(jnp.tanh(v * 0.5))
-                ).reshape(E, Mmsg.shape[1])
-
-    if not early_exit:
-        # interleaved independent half-tile chains — see the min-sum split
-        # kernel's comment (bit-identical per column; fills the idle unit)
-        lanes = _SPLIT_LANES if Bt % (128 * _SPLIT_LANES) == 0 else 1
-        h = Bt // lanes
-        sl = [slice(k * h, (k + 1) * h) for k in range(lanes)]
-
-        # last iteration's bit-message update is dead (see the Gram kernel)
-        def body(_i, Mmsgs):
-            outs = []
-            for k, Mmsg in enumerate(Mmsgs):
-                Em = check_step(Mmsg)
-                outs.append(base[:, sl[k]]
-                            + mm(bcmT2, splitv(mm(bcm2, splitv(Em)))) - Em)
-            return tuple(outs)
-
-        Mlasts = jax.lax.fori_loop(0, iterations - 1, body,
-                                   tuple(Mmsg0[:, s] for s in sl),
-                                   unroll=_full_unroll(iterations - 1))
-        cols = []
-        for k, Mlast in enumerate(Mlasts):
-            Em = (check_step(Mlast) if iterations > 0
-                  else jnp.zeros_like(Mlast))
-            cols.append(mm(bcm2, splitv(Em)) + degr[:, sl[k]])
-        L = jnp.concatenate(cols, axis=1)
-        out_ref[:] = (L <= 0).astype(jnp.int8)
-        return
-
-    Hf = h_ref[:]
-
-    def cond(carry):
-        i, _Mmsg, _L, done = carry
-        return jnp.logical_and(i < iterations, jnp.min(done) < 1.0)
-
-    def wbody(carry):
-        i, Mmsg, L, done = carry
-        Em = check_step(Mmsg)
-        A = mm(bcm2, splitv(Em))
-        Lnew = A + degr
-        Mnew = base + mm(bcmT2, splitv(A)) - Em
-        L = jnp.where(done > 0, L, Lnew)
-        vhat_f = (Lnew <= 0).astype(jnp.float32)
-        done = jnp.maximum(done, (_unsat(Hf, vhat_f) == 0).astype(jnp.float32))
-        Mmsg = jnp.where(done > 0, Mmsg, Mnew)
-        return i + 1, Mmsg, L, done
-
-    _, _, L, _ = jax.lax.while_loop(
-        cond, wbody, (0, Mmsg0, r, _pad_done(n_valid, Bt)))
-    out_ref[:] = (L <= 0).astype(jnp.int8)
-
-
-def _minsum_split_kernel(iterations: int, M: int, Wr: int, N: int,
-                         precise: bool, early_exit: bool, n_valid: int,
-                         norm_offset: float, norm_scale: float,
-                         rx_ref, bcm_ref, bcmT_ref, padbig_ref, h_ref,
-                         out_ref):
-    Bt = rx_ref.shape[1]
-    E = Wr * M
-    big = jnp.float32(np.finfo(np.float32).max)
-    splitv, mm = _make_mm2(precise)
-    Lci = -rx_ref[:]
-    bcm2 = bcm_ref[:]                       # (N, E); precise: (N, 2E)
-    bcm = bcm2[:, :E]
-    bcmT2 = bcmT_ref[:]                     # (E, N); precise: (E, 2N)
-    padbig = padbig_ref[:]
-
-    def gather(x):
-        return jax.lax.dot_general(bcm, x, (((0,), (0,)), ((), ())),
-                                   precision=_HIGHEST,
-                                   preferred_element_type=jnp.float32)
-
-    base = gather(Lci) + padbig
-    Lq0 = base
+def _minsum_kernel(wiring, iterations, early_exit, n_valid, norm_offset,
+                   norm_scale, rx_ref, out_ref):
+    checks, edge_var, variables = wiring
+    n = len(variables)
+    Lci = [-rx_ref[j, :] for j in range(n)]
 
     def check_step(Lq):
-        t = Lq.reshape(Wr, M, Lq.shape[1])
-        beta = jnp.abs(t)
-        sg = jnp.where(t < 0, -1.0, 1.0)
-        P = _tree(jnp.multiply, sg)
-        min_excl, min1 = _excl_min_axis0(beta, big)
-        prod_alpha = jnp.where(min1 == 0, 0.0, P)
-        if norm_offset != 0.0:
-            min_excl = jnp.maximum(min_excl - norm_offset, 0.0)
-        if norm_scale != 1.0:
-            min_excl = min_excl * norm_scale
-        return (sg * (prod_alpha * min_excl)).reshape(E, Lq.shape[1])
+        Lr = [None] * len(Lq)
+        for edges in checks:
+            alpha = [_sign(Lq[e]) for e in edges]
+            prod = alpha[0]
+            for a in alpha[1:]:
+                prod = prod * a
+            # min over the other edges: the value XLA's min1/min2/first-argmin
+            # selection yields (minima are exact, so the order is free)
+            mins = _excl([jnp.abs(Lq[e]) for e in edges], jnp.minimum)
+            for e, a, m in zip(edges, alpha, mins):
+                if norm_offset != 0.0:
+                    m = jnp.maximum(m - jnp.float32(norm_offset), 0.0)
+                if norm_scale != 1.0:
+                    m = m * jnp.float32(norm_scale)
+                Lr[e] = prod * a * m
+        return Lr
 
+    def var_step(Lr, want_bits=True, want_msgs=True):
+        Lq, bits = [None] * len(Lr), []
+        for j, edges in enumerate(variables):
+            s = Lr[edges[0]]
+            for e in edges[1:]:
+                s = s + Lr[e]
+            LQ = Lci[j] + s
+            if want_bits:
+                bits.append((LQ < 0).astype(jnp.int32))
+            if want_msgs:
+                for e in edges:
+                    Lq[e] = LQ - Lr[e]
+        return Lq, bits
+
+    Lq0 = tuple(Lci[v] for v in edge_var)
     if not early_exit:
-        # The batch tile is split into _SPLIT_LANES independent half-width
-        # chains, interleaved in the unrolled straight-line trace: the
-        # serial check(VPU) -> aggregate(MXU) dependency within one chain
-        # leaves a unit idle at each step, and the sibling chain's
-        # independent work is exactly what the Mosaic scheduler needs to
-        # fill it (identical per-column arithmetic — columns never
-        # interact — so the result is bit-identical to a single chain).
-        lanes = _SPLIT_LANES if Bt % (128 * _SPLIT_LANES) == 0 else 1
-        h = Bt // lanes
-        sl = [slice(k * h, (k + 1) * h) for k in range(lanes)]
-
-        # last iteration's Lq update is dead (see the Gram kernel)
-        def body(_i, Lqs):
-            outs = []
-            for k, Lq in enumerate(Lqs):
-                Lr = check_step(Lq)
-                outs.append(base[:, sl[k]]
-                            + mm(bcmT2, splitv(mm(bcm2, splitv(Lr)))) - Lr)
-            return tuple(outs)
-
-        Lqs = jax.lax.fori_loop(0, iterations - 1, body,
-                                tuple(Lq0[:, s] for s in sl),
-                                unroll=_full_unroll(iterations - 1))
-        cols = []
-        for k, Lq in enumerate(Lqs):
-            Lr = (check_step(Lq) if iterations > 0
-                  else jnp.zeros_like(Lq))
-            cols.append(Lci[:, sl[k]] + mm(bcm2, splitv(Lr)))
-        LQ = jnp.concatenate(cols, axis=1)
-        out_ref[:] = (LQ < 0).astype(jnp.int8)
+        def body(_i, Lq):
+            return tuple(var_step(check_step(Lq), want_bits=False)[0])
+        Lq = jax.lax.fori_loop(0, iterations - 1, body, Lq0)
+        _, bits = var_step(check_step(Lq), want_msgs=False)
+        for j in range(n):
+            out_ref[j, :] = bits[j].astype(jnp.int8)
         return
 
-    Hf = h_ref[:]
-
     def cond(carry):
-        i, _Lq, _LQ, done = carry
-        return jnp.logical_and(i < iterations, jnp.min(done) < 1.0)
+        i, _Lq, _words, done = carry
+        return jnp.logical_and(i < iterations, jnp.min(done) == 0)
 
     def wbody(carry):
-        i, Lq, LQ, done = carry
-        Lr = check_step(Lq)
-        A = mm(bcm2, splitv(Lr))
-        LQ_new = Lci + A
-        Lq_new = base + mm(bcmT2, splitv(A)) - Lr
-        Lq = jnp.where(done > 0, Lq, Lq_new)
-        LQ = jnp.where(done > 0, LQ, LQ_new)
-        vhat_f = (LQ_new < 0).astype(jnp.float32)
-        done = jnp.maximum(done, (_unsat(Hf, vhat_f) == 0).astype(jnp.float32))
-        return i + 1, Lq, LQ, done
+        i, Lq, words, done = carry
+        Lq_new, bits = var_step(check_step(Lq))
+        keep = done > 0
+        Lq = tuple(jnp.where(keep, a, b) for a, b in zip(Lq, Lq_new))
+        words = tuple(jnp.where(keep, a, b) for a, b in zip(words, _pack(bits)))
+        conv = _syndrome_ok(bits, checks, edge_var) * (i + 1 < iterations)
+        return i + 1, Lq, words, done | conv
 
-    _, _, LQ, _ = jax.lax.while_loop(
-        cond, wbody, (0, Lq0, Lci, _pad_done(n_valid, Bt)))
-    out_ref[:] = (LQ < 0).astype(jnp.int8)
-
-
-def _run_split(kernel_body, rx, code, iterations, block_b, interpret, precise,
-               early_exit, extra_args=()):
-    bcm_np, _gram, padbig_np, Wr = _wmajor_layout(code)
-    N, E = bcm_np.shape
-    bcmT_np = np.ascontiguousarray(bcm_np.T)
-    if precise:
-        # doubled matrices for the stacked hi/lo aggregation (_make_mm2)
-        bcm_np = np.concatenate([bcm_np, bcm_np], axis=1)     # (N, 2E)
-        bcmT_np = np.concatenate([bcmT_np, bcmT_np], axis=1)  # (E, 2N)
-    B = rx.shape[0]
-    Hf = jnp.asarray(code.H.astype(np.float32))               # (M, N)
-    return _launch(
-        functools.partial(kernel_body, iterations, code.M, Wr, N, precise,
-                          early_exit, B, *extra_args),
-        rx, N,
-        [(jnp.asarray(bcm_np), bcm_np.shape),
-         (jnp.asarray(bcmT_np), bcmT_np.shape),
-         (jnp.asarray(padbig_np), (E, 1)), (Hf, (code.M, N))],
-        block_b, interpret)
+    zero = jnp.zeros((TILE,), jnp.int32)
+    words0 = tuple(zero for _ in range(0, n, 32))
+    _, _, words, _ = jax.lax.while_loop(
+        cond, wbody, (0, Lq0, words0, _pad_done(n_valid)))
+    _store_words(out_ref, words, n)
 
 
-def _run_exact(kernel_body, rx, code, iterations, block_b, interpret):
-    lay = edge_layout(code)
-    M, N, Wr = lay.M, lay.N, lay.Wr
-    E = M * Wr
-    bcm = jnp.asarray(lay.B_cm, jnp.float32)                  # (N, E)
-    aux = jnp.asarray(lay.chk_mask.reshape(E, 1), jnp.float32)
-    return _launch(functools.partial(kernel_body, iterations, M, Wr, N),
-                   rx, N, [(bcm, (N, E)), (aux, (E, 1))], block_b, interpret)
+# ---------------------------------------------------------------------------
+# tanh-rule sum-product (ops.decode.decode_sumproduct)
+# ---------------------------------------------------------------------------
+
+def _sumproduct_kernel(wiring, iterations, early_exit, n_valid, rx_ref,
+                       out_ref):
+    checks, edge_var, variables = wiring
+    n = len(variables)
+    r = [-rx_ref[j, :] for j in range(n)]
+
+    def half_step(Mmsg):
+        """Check messages, then per-variable terms and the tentative bits."""
+        E = [None] * len(Mmsg)
+        for edges in checks:
+            T = _excl([jnp.tanh(Mmsg[e] / 2.0) for e in edges], jnp.multiply)
+            for e, t in zip(edges, T):
+                E[e] = jnp.log((1.0 + t) / (1.0 - t))
+        terms, bits = [], []
+        for j, edges in enumerate(variables):
+            tj = [E[e] + r[j] for e in edges]
+            L = tj[0]
+            for t in tj[1:]:
+                L = L + t
+            terms.append(tj)
+            bits.append((L <= 0).astype(jnp.int32))
+        return terms, bits
+
+    def bit_step(terms):
+        """M(j, i) = sum over the other checks: decode._excl_sum's
+        (cumsum - t) + (reverse cumsum - t), in its summation order."""
+        M = [None] * len(edge_var)
+        for edges, tj in zip(variables, terms):
+            d = len(tj)
+            cs, rs = [tj[0]], [tj[d - 1]]
+            for w in range(1, d):
+                cs.append(cs[-1] + tj[w])
+                rs.append(rs[-1] + tj[d - 1 - w])
+            rs = rs[::-1]
+            for w, e in enumerate(edges):
+                M[e] = (cs[w] - tj[w]) + (rs[w] - tj[w])
+        return tuple(M)
+
+    M0 = tuple(r[v] for v in edge_var)
+    if not early_exit:
+        def body(_i, Mmsg):
+            return bit_step(half_step(Mmsg)[0])
+        Mmsg = jax.lax.fori_loop(0, iterations - 1, body, M0)
+        _, bits = half_step(Mmsg)
+        for j in range(n):
+            out_ref[j, :] = bits[j].astype(jnp.int8)
+        return
+
+    # the reference checks the syndrome every iteration, before the bit
+    # messages, with no iteration guard (decode.decode_sumproduct)
+    def cond(carry):
+        i, _M, _words, done = carry
+        return jnp.logical_and(i < iterations, jnp.min(done) == 0)
+
+    def wbody(carry):
+        i, Mmsg, words, done = carry
+        terms, bits = half_step(Mmsg)
+        words = tuple(jnp.where(done > 0, a, b)
+                      for a, b in zip(words, _pack(bits)))
+        done = done | _syndrome_ok(bits, checks, edge_var)
+        M_new = bit_step(terms)
+        Mmsg = tuple(jnp.where(done > 0, a, b) for a, b in zip(Mmsg, M_new))
+        return i + 1, Mmsg, words, done
+
+    zero = jnp.zeros((TILE,), jnp.int32)
+    words0 = tuple(zero for _ in range(0, n, 32))
+    _, _, words, _ = jax.lax.while_loop(
+        cond, wbody, (0, M0, words0, _pad_done(n_valid)))
+    _store_words(out_ref, words, n)
 
 
-def _run_fast(kernel_body, rx, code, iterations, block_b, interpret, precise,
-              early_exit, extra_args=()):
-    bcm_np, gram_np, padbig_np, Wr = _wmajor_layout(code)
-    N, E = bcm_np.shape
-    if precise:
-        # doubled matrices for the stacked hi/lo aggregation: one matmul
-        # with contraction 2E instead of two E-contraction passes (see
-        # _make_split_mm)
-        bcm_np = np.concatenate([bcm_np, bcm_np], axis=1)     # (N, 2E)
-        gram_np = np.concatenate([gram_np, gram_np], axis=1)  # (E, 2E)
-    B = rx.shape[0]
-    Hf = jnp.asarray(code.H.astype(np.float32))               # (M, N)
-    return _launch(
-        functools.partial(kernel_body, iterations, code.M, Wr, N, precise,
-                          early_exit, B, *extra_args),
-        rx, N,
-        [(jnp.asarray(bcm_np), bcm_np.shape),
-         (jnp.asarray(gram_np), gram_np.shape),
-         (jnp.asarray(padbig_np), (E, 1)), (Hf, (code.M, N))],
-        block_b, interpret)
+# ---------------------------------------------------------------------------
+# launcher
+# ---------------------------------------------------------------------------
 
-
-def _launch(kernel, rx, N, consts, block_b, interpret, vmem_limit=None):
-    """vmem_limit: bytes of scoped VMEM to request, or None for the compiler
-    default (~16 MiB). Only raise it when the tile genuinely needs more —
-    empirically a raised limit changes Mosaic's scheduling and costs ~40%
-    at block sizes that fit the default budget."""
-    compiler_params = (None if vmem_limit is None else
-                       pltpu.CompilerParams(vmem_limit_bytes=vmem_limit))
-    B = rx.shape[0]
-    Bp = max(block_b, ((B + block_b - 1) // block_b) * block_b)
-    rx_t = jnp.zeros((N, Bp), jnp.float32).at[:, :B].set(
-        jnp.asarray(rx, jnp.float32).T)
-    grid = (Bp // block_b,)
+def _launch(kernel, name, rx, iterations, interpret):
+    rx = jnp.asarray(rx, jnp.float32)
+    B, N = rx.shape
+    if iterations <= 0 or B == 0:
+        return jnp.zeros((B, N), jnp.int8)
+    Bp = -(-B // TILE) * TILE
+    # frames along the minor axis: each per-variable row load is contiguous
+    rx_t = jnp.pad(rx, ((0, Bp - B), (0, 0))).T
     out = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((N, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ] + [
-            pl.BlockSpec(shape, lambda i: (0, 0), memory_space=pltpu.VMEM)
-            for _, shape in consts
-        ],
-        out_specs=pl.BlockSpec((N, block_b), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
+        grid=(Bp // TILE,),
+        in_specs=[pl.BlockSpec((N, TILE), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((N, TILE), lambda i: (0, i)),
         out_shape=jax.ShapeDtypeStruct((N, Bp), jnp.int8),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-        compiler_params=compiler_params,
-    )(rx_t, *[arr for arr, _ in consts])
-    return out[:, :B].T  # (B, N) int8
-
-
-_MODE_BLOCKS = {"exact": 512, "precise": 2048, "fast": 4096}
-# Round-4 retune under FULL loop unroll (tools/proto_r4.py, 131072 frames
-# x 20 iters): precise kernels now prefer b2048 for both methods (SPA
-# 1.45 Gbit/s at b2048 vs 1.25 at b3072; min-sum 1.59 vs 1.32 — the
-# unrolled schedule's larger live-range budget favors the smaller tile),
-# retiring round 3's b3072 precise-large special case. Fast kernels
-# split by method: min-sum fast measured 2.45 Gbit/s at b3072 vs 2.21 at
-# b4096, while SPA fast keeps b4096 (1.70 vs 1.62).
-_FAST_BLOCK_BY_METHOD = {"minsum": 3072, "sumproduct": 4096}
-_REF_SLOTS = 192  # edge slots of the reference 32x64 code the blocks above
-                  # were tuned on
-# MAX_EDGE_SLOTS / edge_slots / pallas_supported live in ops.layout (pure
-# numpy, importable without jax.experimental.pallas) and are re-exported
-# here for back-compat.
-
-
-def _auto_block(mode: str, E: int, early_exit: bool = False,
-                method_kind: str = "minsum") -> int:
-    # The VMEM footprint has an E^2 term (the Gram) on top of the E*block_b
-    # message buffers, so a 1/E block law overshoots for larger codes:
-    # block ~ E^-1.5 fits the measured envelope there (E=192 at 4096, 5120+
-    # fails; E=768 at 512, 1024 fails — both mode="fast"). Below the tuning
-    # point the 1/E law is the proven one (the recorded sim-code sweeps ran
-    # it); E^-1.5 would overshoot VMEM for tiny codes (E=48 -> 32k lanes).
-    ratio = _REF_SLOTS / max(E, 1)
-    base = (_FAST_BLOCK_BY_METHOD.get(method_kind, 4096)
-            if mode == "fast" and ratio <= 1.0 else _MODE_BLOCKS[mode])
-    scaled = int(base * min(ratio, ratio**1.5))
-    if early_exit:
-        # the while-loop kernels carry extra live state (messages + frozen
-        # LLRs + done mask + H) — measured envelope: b4096 fails to compile
-        # for the SPA fast/precise early-exit kernels on a v5e, b2048 is
-        # safe for every mode/method
-        scaled = min(scaled, 2048)
-    return max(256, (scaled // 256) * 256)
-
-
-def _auto_block_split(E: int, N: int, early_exit: bool,
-                      precise: bool = False,
-                      method_kind: str = "minsum") -> int:
-    """Batch block for the split kernels: what fits ~14 MiB VMEM after the
-    constant matrices, with the MEASURED number of live (E, block) f32
-    buffers. Fixed-iteration: 4 for both modes with single-width constant
-    accounting — the precise mode's doubled matrices and stacked splitv
-    temp are offset by Mosaic's buffer reuse in the unrolled straight-line
-    loop (measured on the E=768 code: precise compiles at the same b1024
-    the fast path uses, and b1024 is its throughput optimum,
-    tools/bench_large_r5.py). Early-exit precise: the while-loop keeps
-    messages + frozen LLRs + the stacked operand live simultaneously —
-    measured live-equivalent ~9 (min-sum) / ~12 (sum-product, whose
-    check step keeps more temporaries alive across the matmuls) with the
-    doubled constants charged (E=768: 17.2 MiB at b768 and 17.3 MiB at
-    b512 both OOM for min-sum — the while-loop double-buffers its carry —
-    and b384 compiles + matches XLA on-chip; SPA needs b256)."""
-    if early_exit and precise:
-        live, const = (12 if method_kind == "sumproduct" else 9), 16 * N * E
-    elif early_exit:
-        # measured (round 5): the old live=5 law chose b768 for E=768,
-        # which OOMs on-chip by 1.5 MiB (this path had only interpret-mode
-        # coverage before); min-sum fits at b512 (live=7), sum-product
-        # misses b512 by 140 KiB and lands on b384 (live=9)
-        live, const = (9 if method_kind == "sumproduct" else 7), 8 * N * E
-    else:
-        live, const = 4, 8 * N * E
-    budget = 14 * 2**20 - const
-    bb = budget // (live * 4 * E)
-    return max(128, min(2048, (int(bb) // 128) * 128))
-
-
-def _dispatch(exact_kernel, fast_kernel, split_kernel, rx, code, iterations,
-              block_b, interpret, mode, early_exit, impl="auto",
-              extra_args=(), method_kind="minsum"):
-    if mode not in _MODE_BLOCKS:
-        raise ValueError(f"unknown mode {mode!r}; use exact|precise|fast")
-    if impl not in ("auto", "gram", "split"):
-        raise ValueError(f"unknown impl {impl!r}; use auto|gram|split")
-    E = edge_slots(code)
-    use_split = impl == "split" or (
-        impl == "auto" and mode != "exact" and not pallas_supported(code)
-        and pallas_split_supported(code) and not interpret and not block_b)
-    if use_split and mode == "exact":
-        raise ValueError("impl='split' supports mode='precise' or 'fast'")
-    if block_b:
-        bb = block_b  # explicit block skips the size gate (escape hatch)
-    elif use_split:
-        bb = _auto_block_split(E, code.N, early_exit, mode == "precise",
-                               method_kind)
-    else:
-        if not (interpret or pallas_supported(code)):
-            raise ValueError(
-                f"code {code.name!r} has {E} edge slots; the VMEM-resident "
-                f"Gram pallas kernels fit codes up to {MAX_EDGE_SLOTS} "
-                f"slots and the split kernels up to {MAX_EDGE_SLOTS_SPLIT} "
-                f"(this code {'fits' if pallas_split_supported(code) else 'exceeds'} "
-                f"the split envelope — impl='split' selects them; "
-                f"impl='auto' does so automatically outside interpret "
-                f"mode). Otherwise use the XLA decoders "
-                f"(make_decoder(backend='xla' or 'auto')).")
-        bb = _auto_block(mode, E, early_exit, method_kind)
-    if use_split:
-        return _run_split(split_kernel, rx, code, iterations, bb, interpret,
-                          precise=(mode == "precise"), early_exit=early_exit,
-                          extra_args=extra_args)
-    if mode == "exact":
-        if early_exit:
-            raise NotImplementedError(
-                "early_exit requires mode='precise' or 'fast'")
-        return _run_exact(exact_kernel, rx, code, iterations, bb, interpret)
-    return _run_fast(fast_kernel, rx, code, iterations, bb, interpret,
-                     precise=(mode == "precise"), early_exit=early_exit,
-                     extra_args=extra_args)
+        name=name,
+    )(rx_t)
+    return out[:, :B].T
 
 
 def pallas_decode_minsum(
     rx: jax.Array, code: LdpcCode, iterations: int = 20,
-    block_b: int | None = None, interpret: bool = False, mode: str = "exact",
     early_exit: bool = False, norm_offset: float = 0.0,
-    norm_scale: float = 1.0, impl: str = "auto",
+    norm_scale: float = 1.0, interpret: bool = False,
 ) -> jax.Array:
-    """VMEM-resident min-sum decode. rx (B, N) -> vhat (B, N).
-
-    mode: "exact" (jnp-f32-identical), "precise" (hi/lo aggregation),
-    "fast" (bf16 aggregation, max throughput). See module docstring.
-    early_exit=True (fast/precise only) runs a while_loop that freezes
-    converged frames on syndrome success and stops a tile once every frame
-    converged — the on-device analog of the reference's iteration break
-    (lib/ldpc_decoder_cb_impl.cc:405-408), matching ops/decode.py's batched
-    freezing semantics.
-    """
-    if (norm_offset, norm_scale) != (0.0, 1.0) and mode == "exact":
-        raise NotImplementedError(
-            "min-sum corrections require mode='precise' or 'fast'")
-    return _dispatch(_minsum_exact_kernel, _minsum_fast_kernel,
-                     _minsum_split_kernel,
-                     rx, code, iterations, block_b, interpret, mode,
-                     early_exit, impl=impl,
-                     extra_args=(float(norm_offset), float(norm_scale)),
-                     method_kind="minsum")
+    """Min-sum decode, rx (B, N) -> vhat (B, N) int8, with the semantics of
+    ``ops.decode.decode_minsum`` (early exit freezes converged frames; a
+    tile stops once all its frames have converged)."""
+    kernel = functools.partial(
+        _minsum_kernel, _wiring(code), iterations, early_exit, rx.shape[0],
+        float(norm_offset), float(norm_scale))
+    return _launch(kernel, "bp_minsum", rx, iterations, interpret)
 
 
 def pallas_decode_sumproduct(
     rx: jax.Array, code: LdpcCode, iterations: int = 20,
-    block_b: int | None = None, interpret: bool = False, mode: str = "exact",
-    early_exit: bool = False, impl: str = "auto",
+    early_exit: bool = False, interpret: bool = False,
 ) -> jax.Array:
-    """VMEM-resident tanh-rule SPA decode. See pallas_decode_minsum; the
-    early-exit syndrome check runs every iteration with no guard, matching
-    the reference (lib/ldpc_decoder_cb_impl.cc:534-537)."""
-    return _dispatch(_sumproduct_exact_kernel, _sumproduct_fast_kernel,
-                     _sumproduct_split_kernel,
-                     rx, code, iterations, block_b, interpret, mode,
-                     early_exit, impl=impl, method_kind="sumproduct")
+    """Sum-product decode, rx (B, N) -> vhat (B, N) int8, with the
+    semantics of ``ops.decode.decode_sumproduct``."""
+    kernel = functools.partial(
+        _sumproduct_kernel, _wiring(code), iterations, early_exit,
+        rx.shape[0])
+    return _launch(kernel, "bp_sumproduct", rx, iterations, interpret)

@@ -4,7 +4,7 @@ The reference has no multi-device execution of any kind (SURVEY.md §2,
 "Parallelism / distribution inventory"); its only concurrency is the GNU
 Radio one-thread-per-block scheduler and its only "distributed" boundary is
 the analog RF link between transmitter.grc and receiver.grc. This package
-provides the TPU-native scaling layer mandated by BASELINE.json:
+provides the device-mesh scaling layer:
 
   mesh.py    jax.sharding.Mesh construction helpers (hosts x chips)
   sweep.py   codeword-batch data parallelism: the Monte-Carlo BER/FER step

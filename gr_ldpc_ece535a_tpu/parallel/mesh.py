@@ -8,11 +8,10 @@ Axis convention used across the framework:
             stream (halo exchange between neighbors, parallel/stream.py)
 
 A 1D mesh over "batch" is the common case; the streaming receiver uses a 2D
-("stream", "batch") mesh. On a multi-host slice, make_mesh lays the axes out
-so that "batch" (all-reduce traffic: psum of small stat vectors) spans hosts
-over DCN while "stream" (neighbor ppermute of N-1 symbol halos, latency
-sensitive) stays within a host's ICI domain — jax.sharding.Mesh orders
-devices so the *last* axis is fastest-varying/closest.
+("stream", "batch") mesh. The cards of a host are joined all to all, so no
+device order is closer than another: the axis order follows the algorithm
+alone (the sweep's psum runs over "batch", the stream decode's neighbour
+ppermute over "stream").
 """
 
 from __future__ import annotations

@@ -43,20 +43,6 @@ class SweepStats(NamedTuple):
     n_bits: jax.Array
 
 
-def _pallas_sweep_decoder(code, method, iterations, early_exit):
-    """Pallas 'precise' decoder for the BP methods, or None if not covered."""
-    from ..ops.decode import METHODS
-    from ..ops.pallas_bp import pallas_decode_minsum, pallas_decode_sumproduct
-
-    name = METHODS[method] if isinstance(method, int) else method
-    fn = {"minsum": pallas_decode_minsum,
-          "sumproduct": pallas_decode_sumproduct}.get(name)
-    if fn is None:
-        return None
-    return lambda rx: fn(rx, code, iterations=iterations, mode="precise",
-                         early_exit=early_exit)
-
-
 def make_sweep_step(
     code: LdpcCode,
     mesh: Mesh,
@@ -66,34 +52,24 @@ def make_sweep_step(
     early_exit: bool = True,
     batch_axis: str = "batch",
     decode_fn: Callable[[jax.Array], jax.Array] | None = None,
-    backend: str = "auto",
 ) -> Callable[[jax.Array, jax.Array], SweepStats]:
     """Build the jitted sharded step: (key, ebn0_db) -> SweepStats.
 
     ``key`` and ``ebn0_db`` are replicated inputs; all heavy arrays live and
     die on-device inside the step (nothing but six scalars returns to host).
-    ``decode_fn`` overrides the decoder; otherwise ``backend`` picks it:
-    "xla" = the jnp decoder (bit-exactness path, any platform); "pallas" =
-    the VMEM-resident precise kernel (BP methods only); "auto" = pallas on
-    TPU meshes for the BP methods, xla otherwise (~15x faster sweeps on
-    TPU at matched hard decisions — see ops/pallas_bp.py mode notes).
+    ``decode_fn`` overrides the decoder; otherwise the mesh's platform picks
+    it (``ops.decode.decode_backend``). ``step.shard_stats(key, ebn0_db,
+    idx)`` runs shard ``idx``'s computation alone, unsharded, so the psum
+    can be checked against serial runs of the same keys.
     """
-    if decode_fn is None and backend != "xla":
-        on_tpu = all(d.platform == "tpu" for d in mesh.devices.flat)
-        if backend == "pallas" or (backend == "auto" and on_tpu):
-            decode_fn = _pallas_sweep_decoder(code, method, iterations,
-                                              early_exit)
-            if decode_fn is None and backend == "pallas":
-                raise ValueError(
-                    f"backend='pallas' supports minsum/sumproduct, "
-                    f"not method {method!r}")
     dec = decode_fn or make_decoder(
         code, method=method, iterations=iterations, early_exit=early_exit,
-        jit=False)
+        jit=False, mesh=mesh)
     K, M, N = code.K, code.M, code.N
 
-    def _shard_step(key: jax.Array, ebn0_db: jax.Array) -> SweepStats:
-        idx = jax.lax.axis_index(batch_axis)
+    def shard_stats(key: jax.Array, ebn0_db: jax.Array,
+                    idx: jax.Array) -> SweepStats:
+        """One shard's counters, for frames drawn from fold_in(key, idx)."""
         kd, kn = jax.random.split(jax.random.fold_in(key, idx))
         d = jax.random.bernoulli(kd, 0.5, (frames_per_device, K)).astype(jnp.int8)
         u = encode_bits(d, code)                       # (B, N) [check | data]
@@ -104,7 +80,7 @@ def make_sweep_step(
         info_e = jnp.sum(wrong[:, M:])
         frame_e = jnp.sum(jnp.any(wrong > 0, axis=-1))
         det_e = jnp.sum(syndrome_weight(vhat, code.H) > 0)
-        local = SweepStats(
+        return SweepStats(
             bit_errors=bit_e.astype(jnp.float32),
             info_bit_errors=info_e.astype(jnp.float32),
             frame_errors=frame_e.astype(jnp.float32),
@@ -112,6 +88,9 @@ def make_sweep_step(
             n_frames=jnp.float32(frames_per_device),
             n_bits=jnp.float32(frames_per_device * N),
         )
+
+    def _shard_step(key: jax.Array, ebn0_db: jax.Array) -> SweepStats:
+        local = shard_stats(key, ebn0_db, jax.lax.axis_index(batch_axis))
         return jax.tree.map(
             lambda x: jax.lax.psum(x, batch_axis), local)
 
@@ -127,4 +106,12 @@ def make_sweep_step(
     def step(key: jax.Array, ebn0_db) -> SweepStats:
         return jitted(key, jnp.asarray(ebn0_db, jnp.float32))
 
+    serial = jax.jit(shard_stats)
+
+    def one_shard(key: jax.Array, ebn0_db, idx: int) -> SweepStats:
+        return serial(key, jnp.asarray(ebn0_db, jnp.float32), jnp.int32(idx))
+
+    # the same per-shard program run alone on the default device: the
+    # step's result is the sum of one_shard over idx in range(mesh size)
+    step.shard_stats = one_shard
     return step

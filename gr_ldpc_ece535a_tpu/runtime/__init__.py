@@ -51,13 +51,18 @@ def build_native(force: bool = False) -> Optional[Path]:
             and _SO.stat().st_mtime >= _SRC.stat().st_mtime):
         return _SO
     _SO.parent.mkdir(parents=True, exist_ok=True)
+    # build to a per-process name and rename into place: several test
+    # workers may build at once, and none may load a half-written library
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
     cmd = [
         os.environ.get("CXX", "g++"), "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", str(_SO), str(_SRC),
+        "-o", str(tmp), str(_SRC),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-    except (subprocess.SubprocessError, FileNotFoundError):
+        os.replace(tmp, _SO)
+    except (subprocess.SubprocessError, OSError):
+        tmp.unlink(missing_ok=True)
         return None
     return _SO
 

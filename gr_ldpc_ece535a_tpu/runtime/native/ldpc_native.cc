@@ -1,4 +1,4 @@
-// Native host runtime for the TPU LDPC framework.
+// Native host runtime for the LDPC framework.
 //
 // Three independent subsystems behind a C ABI (ctypes-loaded from
 // runtime/__init__.py):

@@ -108,7 +108,7 @@ def test_early_exit_equals_reference_semantics():
 
 
 def test_f32_vs_f64_hard_decision_agreement():
-    """The f32 TPU path must agree with f64 on hard decisions at operating SNR."""
+    """The f32 device path must agree with f64 on hard decisions at operating SNR."""
     code = get_code("block_32_64")
     rx, _ = _random_rx(code, 2048, seed=5, ebn0_db=3.0)
     for fn in (decode_minsum, decode_sumproduct):
@@ -173,13 +173,12 @@ def test_offset_minsum_pallas_matches_xla():
     code = get_code("block_32_64")
     rx = np.random.default_rng(9).standard_normal((300, 64)).astype(np.float32)
     vp = np.asarray(pallas_decode_minsum(
-        jnp.asarray(rx), code, iterations=5, block_b=128, interpret=True,
-        mode="precise", norm_offset=0.25, norm_scale=0.9))
+        jnp.asarray(rx), code, iterations=5, interpret=True,
+        norm_offset=0.25, norm_scale=0.9))
     vj = np.asarray(decode_minsum(
         jnp.asarray(rx), code, iterations=5, early_exit=False,
         norm_offset=0.25, norm_scale=0.9))
-    agree = (vp == vj).all(axis=1).mean()
-    assert agree >= 0.99, agree
+    assert np.array_equal(vp, vj)
 
 
 def test_bitflip_mp_matches_oracle():
@@ -228,3 +227,58 @@ def test_bitflip_mp_actually_corrects():
     fail_maj = int((np.asarray(syndrome_weight(
         decode_bitflip(rx, code, iterations=5), code.H)) > 0).sum())
     assert fail_mp < fail_maj * 0.9, (fail_mp, fail_maj)
+
+
+@pytest.mark.parametrize("name", ["block_32_64", "sim_50_100", "sim_5_10"])
+def test_layout_gathers_match_one_hot_permutes(name):
+    """The static-index gathers move every edge message exactly where the
+    dense one-hot permutation matrices would (pads read 0)."""
+    from gr_ldpc_ece535a_tpu.ops import decode as D
+    from gr_ldpc_ece535a_tpu.ops.layout import edge_layout
+
+    code = get_code(name)
+    lay = edge_layout(code)
+    M, N, Wr, Wc = lay.M, lay.N, lay.Wr, lay.Wc
+    T_vm = np.zeros((M * Wr, N * Wc))
+    T_cm = np.zeros((N * Wc, M * Wr))
+    B_cm = np.zeros((N, M * Wr))
+    B_vm = np.zeros((M, N * Wc))
+    for j in range(N):
+        for v in range(Wc):
+            if lay.var_mask[j, v]:
+                T_vm[lay.vm_from_cm[j, v], j * Wc + v] = 1
+                B_vm[lay.var_nbrs[j, v], j * Wc + v] = 1
+    for m in range(M):
+        for w in range(Wr):
+            if lay.chk_mask[m, w]:
+                T_cm[lay.cm_from_vm[m, w], m * Wr + w] = 1
+                B_cm[lay.chk_nbrs[m, w], m * Wr + w] = 1
+    rng = np.random.default_rng(0)
+    B = 5
+    x_cm = rng.standard_normal((B, M, Wr)) * lay.chk_mask
+    x_vm = rng.standard_normal((B, N, Wc)) * lay.var_mask
+    x_var = rng.standard_normal((B, N))
+    x_chk = rng.standard_normal((B, M))
+    for got, want in (
+            (D._gather_vm(jnp.asarray(x_cm), lay), x_cm.reshape(B, -1) @ T_vm),
+            (D._gather_cm(jnp.asarray(x_vm), lay), x_vm.reshape(B, -1) @ T_cm),
+            (D._bcast_cm(jnp.asarray(x_var), lay), x_var @ B_cm),
+            (D._bcast_vm(jnp.asarray(x_chk), lay), x_chk @ B_vm)):
+        np.testing.assert_array_equal(np.asarray(got).reshape(B, -1), want)
+
+
+def test_oracle_sumproduct_saturated_tanh():
+    """A saturated tanh (T == +-1 in float64) gives +-inf check messages as
+    in C, not a Python ZeroDivisionError, and the oracle still agrees with
+    the float64 XLA decoder."""
+    from gr_ldpc_ece535a_tpu.ops import bpsk_map, encode_bits
+
+    code = get_code("block_32_64")
+    d = np.random.default_rng(0).integers(0, 2, (8, code.K)).astype(np.int8)
+    u = np.asarray(encode_bits(jnp.asarray(d), code))
+    rx = 40.0 * np.asarray(bpsk_map(jnp.asarray(u)), np.float64)
+    rx[:, 0] *= -1
+    vo = np.stack([oracle.decode_sum_product_soft(r, code.H, 20) for r in rx])
+    vx = np.asarray(decode_sumproduct(jnp.asarray(rx), code, iterations=20,
+                                      dtype=jnp.float64))
+    np.testing.assert_array_equal(vo, vx)

@@ -9,6 +9,7 @@ decode with the sync state machine -> original bytes.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from gr_ldpc_ece535a_tpu.blocks import (
@@ -267,7 +268,7 @@ def test_rx_chain_to_stream_receiver_end_to_end():
 
 
 # ---------------------------------------------------------------------------
-# pair-form (complex-free) chain: the TPU path on backends without complex
+# pair-form (complex-free) chain: (2, T) f32 planes, no complex dtype
 # ---------------------------------------------------------------------------
 
 
@@ -339,7 +340,7 @@ def test_rx_chain_pairs_to_stream_receiver_end_to_end():
     from gr_ldpc_ece535a_tpu.parallel import StreamReceiver
 
     code = get_code("block_32_64")
-    msg = (b"rx_chain_pairs: complex-free example4 on the TPU backend! " * 40)
+    msg = (b"rx_chain_pairs: complex-free example4 on the GPU backend! " * 40)
     data = np.frombuffer(msg, np.uint8).reshape(-1, code.K // 8)
     tx_syms = np.asarray(encode_to_symbols(jnp.asarray(data), code)
                          ).reshape(-1)
@@ -367,7 +368,7 @@ def test_rx_chain_pairs_to_stream_receiver_end_to_end():
 @pytest.mark.parametrize("block", [256, 2048, 8192])
 def test_rx_chain_pairs_large_timing_block_survives_50ppm(ratio, block):
     """Large timing_block_syms (fewer sequential tracking steps — the
-    chain's TPU throughput knob) must still lock under +-50 ppm drift plus
+    chain's throughput knob) must still lock under +-50 ppm drift plus
     a 0.01 carrier offset. Since round 4 the tracker interpolates the
     sampling phase per symbol inside each block, so block size no longer
     bounds the tolerable drift; since round 5 the quadrature discriminant
@@ -452,3 +453,26 @@ def test_rx_chain_pairs_ff_to_stream_receiver_end_to_end():
     # mid-stream payload span rather than the tail
     third = len(msg) // 3
     assert msg[third:2 * third] in out.data
+
+
+@pytest.mark.parametrize("timing", ["track", "ff"])
+def test_rx_chain_pairs_matmuls_ask_for_highest_precision(timing):
+    """Every matmul on the pair-form chain path states HIGHEST precision, so
+    a GPU cannot run it in TF32 (10 mantissa bits)."""
+    xp = jax.ShapeDtypeStruct((2, 1 << 16), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda x: dsp.rx_chain_pairs(
+        x, sps=2, timing=timing, timing_block_syms=256))(xp)
+
+    def dots(jx):
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    assert found
+    for eqn in found:
+        prec = eqn.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec), prec

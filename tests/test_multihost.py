@@ -2,7 +2,7 @@
 
 The single-process tests shard over a virtual 8-device mesh; this one runs
 the Monte-Carlo sweep over a REAL cross-process mesh (jax.distributed +
-CPU-gloo collectives — the same execution model as a multi-host TPU pod,
+CPU-gloo collectives — the same execution model as a multi-host cluster,
 stand-in per SURVEY.md section 4's multi-node plan). The sweep folds its
 PRNG key by GLOBAL device axis index and psums the counters, so the
 2-process x 2-device result must be bit-identical to a single-process

@@ -75,21 +75,23 @@ def test_make_bmp_parses_and_reassembles(tmp_path):
     assert out.read_bytes() == img
 
 
-def test_enable_persistent_compile_cache(tmp_path, monkeypatch):
-    """Respects JAX_COMPILATION_CACHE_DIR; otherwise creates and registers
-    the given (or default XDG) directory."""
+def test_enable_persistent_compile_cache(monkeypatch):
+    """Respects JAX_COMPILATION_CACHE_DIR; otherwise registers the fixed
+    <checkout>/.jax_cache directory."""
+    from pathlib import Path
+
     from gr_ldpc_ece535a_tpu.utils import enable_persistent_compile_cache
 
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/already/set")
     assert enable_persistent_compile_cache() == "/already/set"
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
-    target = tmp_path / "jaxcache"
     import jax
 
+    want = Path(__file__).resolve().parents[1] / ".jax_cache"
     prev = jax.config.jax_compilation_cache_dir
     try:
-        got = enable_persistent_compile_cache(str(target))
-        assert got == str(target) and target.is_dir()
-        assert jax.config.jax_compilation_cache_dir == str(target)
+        got = enable_persistent_compile_cache()
+        assert got == str(want) and want.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(want)
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)

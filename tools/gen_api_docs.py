@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generate docs/api.md from the package's public API docstrings.
 
-The TPU-native analog of the reference's docs machinery
+The analog of the reference's docs machinery
 (/root/reference/docs/doxygen: a Doxygen -> SWIG-docstring pipeline whose
 project content was empty boilerplate). This walks every public submodule,
 collects `__all__` symbols with their signatures and docstrings, and writes

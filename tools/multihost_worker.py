@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Multi-process ("multi-host") sweep worker: one JAX process of N.
 
-Stands in for one host of a TPU pod: ``jax.distributed.initialize`` +
+Stands in for one host of a cluster: ``jax.distributed.initialize`` +
 CPU-gloo collectives give a real cross-process device mesh, the same
-execution model as multi-host TPU (each process sees all GLOBAL devices,
+execution model as a multi-host run (each process sees all GLOBAL devices,
 addresses only its local ones, and the psum in parallel/sweep.py rides the
 collective fabric). Launched by tests/test_multihost.py and usable
 standalone:
@@ -31,15 +31,13 @@ count and prints steps/s and frames/s from process 0.
 Launcher: ``python tools/multihost_worker.py --bench [frames_per_device]``
 spawns the 1-process x 2-device and 2-process x 2-device-each
 configurations back to back and prints the weak-scaling efficiency
-t(1 proc) / t(2 proc) — the measurement BASELINE.md's ">=90% scaling to 2
-hosts" target calls for. ``--bench-stream`` does the same for the halo
+t(1 proc) / t(2 proc). ``--bench-stream`` does the same for the halo
 path (shard_stream_decode, whose (N-1)-symbol ppermute crosses the
 process boundary — BASELINE config 5's collective). On this CPU-gloo fabric the number is a
 methodology check, not a hardware claim: CPU mesh collectives share one
 machine's memory bus, so the printed efficiency under- or over-states what
-TPU ICI/DCN would deliver. On a real 2-host TPU slice the identical
-command (minus the CPU forcing) produces the claimable number — see
-docs/guide.md "Scaling methodology".
+a real interconnect would deliver; the identical command on real hosts
+(minus the CPU forcing) produces the claimable number.
 """
 
 import json
@@ -240,8 +238,7 @@ def _bench_launcher(frames_per_device: int, stream: bool = False) -> None:
     print(json.dumps({
         "metric": f"weak_scaling_efficiency_1to2proc_{mode}",
         "value": t1 / t2,
-        "fabric": "cpu-gloo (methodology check; TPU ICI/DCN numbers "
-                  "require a real 2-host slice)",
+        "fabric": "cpu-gloo (methodology check, not a hardware number)",
         "one_proc": results[1],
         "two_proc": results[2],
     }))
